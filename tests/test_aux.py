@@ -122,9 +122,12 @@ def test_multihost_processes(tmp_path, nprocs):
         )
         for pid in range(nprocs)
     ]
-    for p in procs:
-        _, err = p.communicate(timeout=600)
-        assert p.returncode == 0, err.decode()[-2000:]
+    errs = [p.communicate(timeout=600)[1].decode() for p in procs]
+    failed = [i for i, p in enumerate(procs) if p.returncode != 0]
+    assert not failed, "\n".join(
+        f"--- process {i} (rc={procs[i].returncode}) stderr:\n{errs[i][-3000:]}"
+        for i in range(nprocs)
+    )
 
     blob = out_file.read_bytes()
     assert zlib.decompress(blob, wbits=31) == data

@@ -1,4 +1,4 @@
-"""TPU-parallel inflate (speculative bit decode + pointer doubling) vs the
+"""Device-parallel inflate (speculative bit decode + pointer doubling) vs the
 zlib oracle, on indexed gzip streams produced by our encoder."""
 import zlib
 

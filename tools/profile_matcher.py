@@ -1,4 +1,4 @@
-"""Granular matcher sub-stage timing on the real chip.
+"""Granular matcher sub-stage timing on the device (wall clock).
 
 Reconstructs find_matches piece by piece at production shapes
 ((16, 294912), level-6 params: K=16, key_words=16) and times each
@@ -18,7 +18,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from zzflate_tpu.constants import MAX_MATCH, WINDOW_SIZE
+from zzflate_tpu.constants import WINDOW_SIZE
 from zzflate_tpu.ops import matcher as M
 
 B, N = 16, 294912
@@ -86,7 +86,7 @@ def main():
 
     bench("sortA", f_sortA, data)
 
-    # 2) + scan A (adj + pallas scan + merge)
+    # 2) + scan A (adj + neighbour scan + merge)
     @jax.jit
     def f_scanA(d, wsv):
         def one(dd, w_s):
@@ -186,26 +186,9 @@ def main():
 
     @jax.jit
     def f_prop_xla(pk):
-        def one(p1):
-            pos = jnp.arange(N, dtype=jnp.int32)
-            out = p1
-            shift = 1
-            while shift < MAX_MATCH:
-                cand = jnp.roll(out, shift) - (shift << 15)
-                cand = jnp.where((pos >= shift) & (cand >= (3 << 15)), cand, 0)
-                out = jnp.maximum(out, cand)
-                shift *= 2
-            return out
-        return red(jax.vmap(one)(pk)[:, ::64])
+        return red(jax.vmap(M._propagate)(pk)[:, ::64])
 
     bench("prop_xla", f_prop_xla, pk0)
-
-    @jax.jit
-    def f_prop_pallas(pk):
-        from zzflate_tpu.ops import pallas_kernels as pkk
-        return red(jax.vmap(pkk.propagate_matches)(pk)[:, ::64])
-
-    bench("prop_pallas", f_prop_pallas, pk0)
 
     # 6c) isolated: the block-rank extension ladder's gather pattern
     @jax.jit

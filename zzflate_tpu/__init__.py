@@ -1,11 +1,12 @@
-"""zzflate_tpu: a TPU-native DEFLATE/zlib/gzip codec in JAX.
+"""zzflate_tpu: a DEFLATE/zlib/gzip codec whose hot paths run on device in JAX.
 
 A from-scratch reimplementation of the reference (jandevaan/zzflate) codec
 capability surface — LZ77 + Huffman deflate, inflate, zlib/gzip containers,
-preset dictionaries, streaming flush — redesigned for TPUs: vectorized
-candidate scoring instead of hash chains, pointer-doubling parse instead of
-a serial commit loop, prefix-sum scatter bit-packing, tree-combining
-checksums, and data-parallel chunk sharding across device meshes.
+preset dictionaries, streaming flush — redesigned for accelerators:
+vectorized candidate scoring instead of hash chains, row-parallel parse
+sweeps instead of one serial commit loop, prefix-sum scatter
+bit-packing, tree-combining checksums, and data-parallel chunk sharding
+across device meshes.
 """
 from zzflate_tpu.api import (compress, compress_bound, decompress,
                              decompress_range)

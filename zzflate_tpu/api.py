@@ -53,7 +53,7 @@ def compress(
 
     indexed=True (gzip only) adds a 'ZZ' FEXTRA subfield with the
     per-chunk compressed sizes; the stream stays a plain gzip member for
-    every standard reader, while our TPU inflate uses the index for
+    every standard reader, while our device inflate uses the index for
     chunk-parallel decode (models/inflate_tpu.py). window_bits 8..15
     bounds match distances to 2^window_bits (zlib.h:551-556 contract).
 

@@ -23,7 +23,7 @@ class LevelParams:
     lazy_mode: bool  # False = greedy commit, True = one-byte-defer
     max_lazy: int
     nice: int
-    # TPU kernel parameters (static): number of sorted-neighbor candidates
+    # Device matcher parameters (static): number of sorted-neighbor candidates
     # scored per position, and suffix-sort key depth in u32 words
     # (4 = 16-byte keys, 16 = 64-byte true-suffix order).
     candidates: int

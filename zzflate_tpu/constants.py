@@ -18,12 +18,12 @@ WINDOW_SIZE = 32768
 
 # 'ZZ' index v3 anchor spacing: the encoder records the (bit, output)
 # position of every ANCHOR_TOKENS-th committed token inside a block, so
-# the TPU decoder can walk every token interval in parallel with a
+# the device decoder can walk every token interval in parallel with a
 # static per-lane step bound (models/inflate_tpu.py). The decoder reads
 # the spacing from the stream's index, so this knob only affects newly
 # encoded indexed streams: halving it doubles decode lane parallelism
 # (and halves the walk's serial step count) for ~2x the index overhead
-# (~8 B per ANCHOR_TOKENS tokens). Env-tunable for on-chip A/B sweeps.
+# (~8 B per ANCHOR_TOKENS tokens). Env-tunable for A/B sweeps.
 ANCHOR_TOKENS = int(os.environ.get("ZZFLATE_ANCHOR_TOKENS", "1024"))
 if not 0 < ANCHOR_TOKENS <= 4096 or 65536 % ANCHOR_TOKENS:
     raise ValueError("ZZFLATE_ANCHOR_TOKENS must divide 65536 and be <= 4096")

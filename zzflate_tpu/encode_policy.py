@@ -107,9 +107,6 @@ def optimal_override(ctx, plans, ana, bfinals, b0: int, b1: int):
 
     Mutates `plans` in place; returns (override_dict | None, ntok_max).
     """
-    import jax
-    import jax.numpy as jnp
-
     from zzflate_tpu import constants as C_
     from zzflate_tpu import native as _native
     from zzflate_tpu.models import deflate_encoder
@@ -168,18 +165,12 @@ def optimal_override(ctx, plans, ana, bfinals, b0: int, b1: int):
             force_single=ctx.single_block_chunks,
         )
 
-    def up(a):
-        arr = jnp.asarray(a)
-        if ctx.sharding is not None:
-            arr = jax.device_put(arr, ctx.sharding)
-        return arr
-
     override = {
-        "committed": up(com_b),
-        "is_match": up(take_b),
-        "litlen_sym": up(sym_b),
-        "lcode": up(lcode_b),
-        "mlen": up(sel_b),
+        "committed": ctx.put(com_b),
+        "is_match": ctx.put(take_b),
+        "litlen_sym": ctx.put(sym_b),
+        "lcode": ctx.put(lcode_b),
+        "mlen": ctx.put(sel_b),
         "dcode": ana["dcode"],
         "mdist": ana["mdist"],
     }

@@ -4,7 +4,7 @@ A from-scratch DEFLATE decoder (SURVEY.md section 3.3 call stack): bit
 reader (LSB-first) -> canonical table decode -> block walker -> LZ
 back-reference copy with overlap -> container parse + checksum verify.
 
-This is the v0 correctness/oracle path; the TPU parallel decoder
+This is the v0 correctness/oracle path; the device-parallel decoder
 (models/inflate_tpu.py) handles the throughput path. Both must decode any
 stream zlib/libdeflate/gzip produce, and everything our encoder produces.
 """

@@ -255,7 +255,7 @@ def scan_anchors(
                 stored_payload_byte_off, stored_len]
       anchors — int64 (na, 2): [bit, out] of every anchor_tokens-th
                 token within its block (bit BEFORE the token's code)
-    These are exactly the lane records the TPU anchor-walk decoder
+    These are exactly the lane records the device anchor-walk decoder
     consumes, so foreign (unindexed) zlib/gzip streams can decode on
     device after this host scan. Raises ValueError on corruption.
     """
@@ -365,7 +365,7 @@ def deflate_raw(
 ) -> bytes:
     """Native one-shot raw-deflate encode (zzt_deflate).
 
-    The host-side engine companion to the TPU pipeline: hash-chain
+    The host-side engine companion to the device pipeline: hash-chain
     matcher with the classic good/lazy/nice/chain effort table, exact
     per-64 KiB stored/fixed/dynamic choice (SURVEY.md C5-C14). Returns
     raw DEFLATE bits; callers add containers. final=False closes with a

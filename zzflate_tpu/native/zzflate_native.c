@@ -1,7 +1,7 @@
 /* zzflate_tpu native runtime: fast host-side inflate + checksums.
  *
  * A from-scratch table-driven raw-DEFLATE decoder (RFC 1951) plus
- * Adler-32/CRC-32, written for the host side of the TPU codec: the device
+ * Adler-32/CRC-32, written for the host side of the device codec: the device
  * owns encode; decode of arbitrary zlib/gzip streams is bit-serial by
  * nature, so it lives here as native code (the reference-class codec's C2 +
  * C17 components, SURVEY.md section 2). Built as a plain shared library,
@@ -477,7 +477,7 @@ int zzt_inflate_stream(const uint8_t *in, size_t in_len, size_t start_bit,
  * Walk a raw deflate stream WITHOUT materializing output: record each
  * block's (start_bit, btype, out_start [, stored byte offset/len]) and
  * the (bit, out) position of every T-th token within each non-stored
- * block. The records are exactly what the TPU anchor-walk decoder needs
+ * block. The records are exactly what the device anchor-walk decoder needs
  * as lanes (models/inflate_tpu.py), so any zlib/gzip stream — not just
  * our own indexed output — can decode chunk-parallel on device after
  * this host scan (SURVEY.md C17: "per-block parallel decode" of
@@ -830,7 +830,7 @@ int zzt_optimal_parse(const uint8_t *data, const int32_t *mlen,
 /* ---------------------------------------------------------------------------
  * Deflate ENCODER (one-shot, host-side engine).
  *
- * The TPU pipeline (models/deflate_encoder.py) is the production encoder;
+ * The device pipeline (models/deflate_encoder.py) is the production encoder;
  * this native encoder serves payloads where a device dispatch is all
  * latency (small buffers, host-only callers) and completes the native
  * runtime alongside the inflate above.  Written from scratch against the

@@ -63,8 +63,8 @@ def pack_fields(
     # Offsets are monotone, so word_idx is sorted — keep the scatter
     # indices sorted (absent fields contribute zeros at their in-order
     # word rather than a sortedness-breaking sentinel) and tell XLA:
-    # sorted scatter-adds lower to a much cheaper form on TPU than the
-    # general atomic path (values are pre-masked, so absent fields and
+    # sorted scatter-adds can take a cheaper lowering than the general
+    # atomic path (values are pre-masked, so absent fields and
     # empty high words add 0 — add == or on disjoint bit ranges).
     words = jnp.zeros((out_words,), jnp.uint32)
     words = words.at[word_idx].add(

@@ -2,7 +2,7 @@
 
 The reference-class codec builds Huffman trees with a heap + overflow fix
 (zlib's gen_bitlen shape, see SURVEY.md C10). Tree construction over <=288
-symbols is negligible work next to the LZ77 stage, so on TPU we keep it
+symbols is negligible work next to the LZ77 stage, so on device we keep it
 inside the jitted encode graph (no host round-trip per block):
 
 - leaves sorted by (freq, symbol) via one small sort;
@@ -221,8 +221,8 @@ def histogram(symbols: jax.Array, valid: jax.Array, n: int) -> jax.Array:
     """Masked bincount of `symbols` where `valid`, into `n` bins (int32).
 
     Computed as a comparison + axis reduction rather than a scatter-add:
-    colliding-index scatters serialize on TPU, while the (N, n) compare
-    fuses into the reduction on the VPU without materializing.
+    colliding-index scatters serialize on their conflicts, while the
+    (N, n) compare fuses into the reduction without materializing.
     """
     idx = jnp.where(valid, symbols, -1).astype(jnp.int32)
     bins = jnp.arange(n, dtype=jnp.int32)

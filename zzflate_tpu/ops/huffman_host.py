@@ -1,7 +1,7 @@
 """Host-side Huffman table + dynamic-header construction (numpy).
 
 The per-block tree build is O(288 log 288) scalar work — negligible next to
-the O(N) device stages but hostile to TPU execution (sequential tiny
+the O(N) device stages but hostile to device execution (sequential tiny
 steps). It therefore runs on the host between the device analyze and emit
 phases (models/deflate_encoder.py two-phase pipeline), exactly where the
 reference-class codec does this work (SURVEY.md C10-C12).

@@ -1,11 +1,9 @@
-"""LZ77 match finding and parse commit, designed TPU-first.
+"""LZ77 match finding and parse commit, built from data-parallel passes.
 
 The reference-class codec walks per-position hash chains and extends
 matches with a sequential memcmp loop (SURVEY.md C5-C7, the dominant ~70%
-of encode cycles). Neither maps to a vector machine. Profiling on the
-target chip showed the one expensive primitive is the random gather
-(~200M elements/s) while sorts, rolls and elementwise passes are fast, so
-this matcher is built almost entirely from sorts and rolls:
+of encode cycles). Neither maps to a vector machine, so this matcher is
+built almost entirely from sorts, rolls and a few strided gathers:
 
 - **Candidate lookup = suffix sort.** One multi-operand `lax.sort` orders
   all positions by their `key_words * 4`-byte prefix (u32 words carried
@@ -19,7 +17,7 @@ this matcher is built almost entirely from sorts and rolls:
 - **Exact LCPs from adjacent compares.** The LCP between sort-neighbors
   is the running min of adjacent-element LCPs (ultrametric inequality;
   computed once from the sorted key words with elementwise ops); min over
-  a K-window needs K rolls, fused in one Pallas stencil on real TPUs.
+  a K-window needs K rolls, which XLA fuses into elementwise passes.
 - **Long-match extension by block ranks.** Positions whose best neighbor
   shares the full key extend by comparing *dense ranks of key-sized
   blocks* (rank equality <=> exact block equality — no hashing, no
@@ -27,9 +25,9 @@ this matcher is built almost entirely from sorts and rolls:
   byte. Rank arrays at 16/32/64-byte granularity all fall out of the one
   sorted order (cumsum of adjacent-LCP thresholds), so the tail refines
   in O(log key) steps.
-- **Commit (greedy/lazy parse) = pointer doubling**: the committed set is
-  the orbit of `next[p] = p + (commit ? len : 1)` found in ceil(log2 N)
-  gather+scatter rounds.
+- **Commit (greedy/lazy parse) = serial row sweeps**: the committed set is
+  the orbit of `next[p] = p + (commit ? len : 1)`, walked row by row with
+  every row of every chunk as one parallel lane (parse_commit_batch).
 """
 from __future__ import annotations
 
@@ -40,10 +38,6 @@ import jax
 import jax.numpy as jnp
 
 from zzflate_tpu.constants import MAX_MATCH, MIN_MATCH, WINDOW_SIZE
-
-# The fused Pallas stencil for the K-neighbor scan (set ZZFLATE_NO_PALLAS=1
-# to fall back to the pure-XLA roll loop).
-_USE_PALLAS = os.environ.get("ZZFLATE_NO_PALLAS") != "1"
 
 _TOO_FAR = 4096  # reject len-3 matches farther than this (zlib heuristic)
 
@@ -64,9 +58,8 @@ def _pack_words(data: jax.Array, nwords: int) -> list[jax.Array]:
 
     Built from ONE shifted-word base: pad data once, make the u32-at-
     every-byte array with 4 static slices, then every deeper word is a
-    static slice of that base. (The previous 4*nwords-roll formulation
-    was one of the three dominant matcher costs on the chip — ~200 ms
-    per 2 MiB batch; slices of a single padded base fuse to ~nothing.)"""
+    static slice of that base, so the word views fuse into their
+    consumers instead of costing one pass per rolled copy."""
     n = data.shape[0]
     pad = jnp.zeros((4 * nwords + 4,), data.dtype)
     d = jnp.concatenate([data, pad]).astype(jnp.uint32)
@@ -110,7 +103,7 @@ def _merge(best_pack, s_len, s_dist, spos, n):
         0,
     )
     # spos is a permutation of positions: every index is distinct, and
-    # XLA lowers unique-index scatters substantially cheaper on TPU.
+    # unique_indices lets XLA skip the conflict-handling scatter path.
     p = jnp.zeros((n,), jnp.int32).at[spos].set(
         pack, unique_indices=True
     )
@@ -151,17 +144,6 @@ def _scan_order(sw, spos, srank, window_start, best_pack,
     """
     adj = _lcp_words([jnp.roll(v, 1) for v in sw], sw)
     adj = adj.at[0].set(0)
-
-    # Pallas on real TPUs; the (bit-identical) XLA roll loop on CPU —
-    # interpret-mode Pallas is much slower than XLA there.
-    if _USE_PALLAS and jax.default_backend() != "cpu":
-        from zzflate_tpu.ops import pallas_kernels as pk
-
-        s_len, s_dist = pk.scan_candidates(
-            adj, spos, window_start, k_each, lcp_cap=lcp_cap,
-            backward_only=backward_only,
-        )
-        return _merge(best_pack, s_len, s_dist, spos, n), adj
 
     s_len = jnp.zeros((n,), jnp.int32)
     s_dist = jnp.zeros((n,), jnp.int32)
@@ -258,14 +240,14 @@ def find_matches(
     # cross-group candidates are covered by order B's forward scan.
     # The first min(key_words, 4) key words ride along so adjacent LCPs
     # are byte-exact to 16 bytes inside equal-w0 groups.
-    # (ZZFLATE_NO_ORDER_A=1 skips this sort: a measured-ratio/speed probe —
-    # on the target chip each sort costs ~190 ms per 2 MiB regardless of
-    # operand count, so sort COUNT is the matcher's cost knob.)
+    # (ZZFLATE_NO_ORDER_A=1 skips this sort: a ratio/speed probe, since
+    # sort count is the matcher's main cost knob.)
     if os.environ.get("ZZFLATE_NO_ORDER_A") != "1":
         a_words = min(key_words, 4)
-        sortedA = jax.lax.sort(
-            tuple(w[:a_words]) + (pos,), num_keys=1, is_stable=True
-        )
+        with jax.named_scope("sort"):
+            sortedA = jax.lax.sort(
+                tuple(w[:a_words]) + (pos,), num_keys=1, is_stable=True
+            )
         best_pack, _ = _scan_order(
             list(sortedA[:a_words]), sortedA[a_words], srank, window_start,
             best_pack, min(candidates, 8), 4 * a_words, n,
@@ -275,9 +257,10 @@ def find_matches(
     # Order B — the full-depth suffix order: neighbors are the suffixes
     # with the LONGEST common prefixes (what a deep chain walk searches
     # for). All key words + position are carried through one sort.
-    sortedB = jax.lax.sort(
-        tuple(w) + (pos,), num_keys=key_words, is_stable=True
-    )
+    with jax.named_scope("sort"):
+        sortedB = jax.lax.sort(
+            tuple(w) + (pos,), num_keys=key_words, is_stable=True
+        )
     swB = list(sortedB[:key_words])
     sposB = sortedB[key_words]
     best_pack, adjB = _scan_order(
@@ -306,21 +289,18 @@ def find_matches(
 
     full = mlen >= key_bytes
 
-    # The block-rank extension below is ~16 random-gather passes — measured
-    # as the single largest matcher cost on the target chip (356 of 616 ms
-    # per 2 MiB batch, fused-ablation timing). When the key is deep enough
-    # (>= 32 bytes > stride), run it EXACTLY but only at stride-16 anchor
-    # positions, then propagate to the rest: for p with anchor a = next
-    # multiple of 16, if both are full-key matches at the SAME distance,
+    # The block-rank extension below is ~16 random-gather passes. When
+    # the key is deep enough (>= 32 bytes > stride), run it EXACTLY but
+    # only at stride anchor positions, then propagate to the rest: for p
+    # with anchor a = next multiple of the stride, if both are full-key matches at the SAME distance,
     # then lcp(p) >= key_bytes > a-p means bytes [p, a) match, so
     # mlen[p] = (a-p) + mlen[a] exactly (never an overestimate; positions
     # whose distance differs from their anchor's keep the scan's
     # key_bytes-capped length — a rare, safe underestimate).
     # Anchor stride for the extension ladder/tail: the ~40 strided
     # gathers below run at n/stride width, so doubling the stride halves
-    # the matcher's extension cost (~80 ms/4 MiB at stride 16 per the
-    # round-4 attribution). Stride 32 measured (2026-08-21, CPU — sizes
-    # are platform-independent): zlib.h x6 L6 1.0004 -> 1.0007,
+    # the matcher's extension cost. Stride 32 measured (2026-08-21, CPU —
+    # sizes are platform-independent): zlib.h x6 L6 1.0004 -> 1.0007,
     # silesia-2MiB 0.9981 -> 0.9985 vs zlib — +0.03-0.04%, inside every
     # gate, for half the extension width; default flipped to 32.
     stride = int(os.environ.get("ZZFLATE_EXT_STRIDE", "32"))
@@ -408,23 +388,7 @@ def find_matches(
             (mlen << 15) | (jnp.int32(WINDOW_SIZE) - mdist),
             0,
         )
-        if _USE_PALLAS and jax.default_backend() != "cpu":
-            # One fused VMEM pass (windowed max of pk[j] + j*2^15)
-            # replacing the 9 roll+max HBM rounds; bit-identical
-            # (tests/test_pallas.py).
-            from zzflate_tpu.ops import pallas_kernels as pkk
-
-            pk = pkk.propagate_matches(pk)
-        else:
-            shift = 1
-            while shift < MAX_MATCH:
-                cand = jnp.roll(pk, shift) - (shift << 15)
-                cand = jnp.where(
-                    (pos >= shift) & (cand >= (3 << 15)), cand, 0
-                )
-                pk = jnp.maximum(pk, cand)
-                shift *= 2
-        mlen, mdist = _unpack_best(pk)
+        mlen, mdist = _unpack_best(_propagate(pk))
 
     mlen = jnp.minimum(mlen, jnp.minimum(MAX_MATCH, valid_end - pos))
     mlen = jnp.where(
@@ -435,6 +399,21 @@ def find_matches(
     )
     mdist = jnp.where(mlen > 0, mdist, 0)
     return mlen, mdist
+
+
+def _propagate(pk: jax.Array) -> jax.Array:
+    """Distance-decayed running max of packed candidates: out[i] is the
+    best of pk[i] and every pk[i-k] - k*2^15 (0 < k < 258) that still
+    encodes a length >= 3, in log2(258) = 9 roll+max rounds."""
+    pos = jnp.arange(pk.shape[0], dtype=jnp.int32)
+    with jax.named_scope("propagate"):
+        shift = 1
+        while shift < MAX_MATCH:
+            cand = jnp.roll(pk, shift) - (shift << 15)
+            cand = jnp.where((pos >= shift) & (cand >= (3 << 15)), cand, 0)
+            pk = jnp.maximum(pk, cand)
+            shift *= 2
+    return pk
 
 
 def _lazy_take(mlen, lazy, max_lazy, nice):
@@ -450,91 +429,33 @@ def _lazy_take(mlen, lazy, max_lazy, nice):
     return has & ~defer
 
 
-# Serial row sweep size. The parse is a sequential walk; on TPU the cheap
-# axis is a wide vector of lanes doing tiny dependent steps (measured
-# ~4-10 us per fori_loop step regardless of lane count), while full-array
-# gather/scatter passes cost ~2-15 ms each. Rows of 512 bytes give
-# 512-step sweeps with (chunks * n/512) parallel lanes — ~6x faster than
-# ceil(log2 n) pointer-doubling rounds at production sizes, and exact.
-# Env-tunable (ZZFLATE_ROW) for on-chip step-count vs lane-width A/B;
+# Serial row sweep size. The parse is a sequential walk; the cheap axis
+# is a wide vector of lanes doing tiny dependent steps. Rows of 512 bytes
+# give 512-step sweeps with (chunks * n/512) parallel lanes, and exact
+# results. Env-tunable (ZZFLATE_ROW) for step-count vs lane-width A/B;
 # must exceed MAX_MATCH so every row's exit lands in the NEXT row (the
 # P2 chain invariant).
 _ROW = int(os.environ.get("ZZFLATE_ROW", "512"))
 if _ROW <= MAX_MATCH:
     raise ValueError("ZZFLATE_ROW must exceed 258")
 
-# Fused Pallas row-sweep parse (pallas_kernels.parse_rows): "1" = compiled,
-# "i" = interpret mode (CPU tests), "0" = the XLA sweeps, unset = AUTO
-# (compiled kernel on real TPUs, XLA sweeps on CPU — interpret mode is
-# slower than XLA there). Round-5 chip measurement: 157 vs 261 ms per
-# (16, 294912) batch at 25% match density, identical marks.
-_PALLAS_PARSE = os.environ.get("ZZFLATE_PALLAS_PARSE", "")
-if _PALLAS_PARSE not in ("", "0", "1", "i"):
-    raise ValueError("ZZFLATE_PALLAS_PARSE must be '', '0', '1' or 'i'")
 
+def _parse_rows_xla(step: jax.Array, starts: jax.Array) -> jax.Array:
+    """Committed-position mask (B, npad) of the walk next[q] = q + step[q]
+    from each chunk's start, by three serial sweeps over _ROW-wide rows.
 
-def _parse_mode() -> str:
-    """Effective parse implementation ('' = XLA sweeps)."""
-    if _PALLAS_PARSE in ("1", "i"):
-        return _PALLAS_PARSE
-    if _PALLAS_PARSE == "0":
-        return ""
-    if _ROW % 128:  # kernel constraint; custom ZZFLATE_ROW keeps XLA
-        return ""
-    return "1" if (_USE_PALLAS and jax.default_backend() != "cpu") else ""
-
-
-@functools.partial(jax.jit, static_argnames=("lazy",))
-def parse_commit_batch(
-    mlen: jax.Array,
-    mdist: jax.Array,
-    starts: jax.Array,
-    valid_ends: jax.Array,
-    lazy: bool,
-    max_lazy: int | jax.Array = 258,
-    nice: int | jax.Array = 258,
-):
-    """Greedy/lazy parse of a BATCH of chunks via serial row sweeps.
-
-    mlen/mdist: (B, N); starts/valid_ends: (B,). Returns (committed, take)
-    as (B, N) bools — identical semantics to a sequential zlib-style
-    deflate_fast/deflate_slow walk (SURVEY.md C6/C7).
-
-    Three passes, all exact (no forced token boundaries):
+    step: (B, npad) int32 in [1, 258], npad a multiple of _ROW;
+    starts: (B,) int32. Positions before a chunk's start are unmarked.
       P1 reverse sweep: exit[p] = first landing at/after p's row end when
-         walking next[q] = q + step[q] from p (row-local recursion, one
-         serial pass of _ROW steps over all rows as parallel lanes);
+         walking from p (row-local recursion, one serial pass of _ROW
+         steps over all rows as parallel lanes);
       P2 entry chain: row entries follow exit[] across rows (steps <= 258
          < _ROW, so each row's exit lands in the next row);
       P3 forward walk: every row walks from its entry, marking the
          committed positions (at most _ROW steps, all rows in parallel).
     """
-    bch, n = mlen.shape
-    take = _lazy_take(mlen, lazy, max_lazy, nice)
-    step = jnp.where(take, jnp.maximum(mlen, 1), 1).astype(jnp.int32)
-
-    npad = -(-n // _ROW) * _ROW
-    if npad != n:
-        step = jnp.pad(step, ((0, 0), (0, npad - n)), constant_values=1)
+    bch, npad = step.shape
     rows_per = npad // _ROW
-
-    mode = _parse_mode()
-    if mode:
-        from zzflate_tpu.ops import pallas_kernels as pk
-
-        mark = pk.parse_rows(
-            step, starts.astype(jnp.int32), _ROW,
-            interpret=mode == "i",
-        )
-        committed = mark[:, :n] == 1
-        posn = jnp.arange(n, dtype=jnp.int32)[None, :]
-        committed = (
-            committed
-            & (posn >= starts[:, None])
-            & (posn < valid_ends[:, None])
-        )
-        return committed, take & committed
-
     lanes = bch * rows_per
     nflat = bch * npad
     sink = jnp.int32(nflat)
@@ -557,7 +478,6 @@ def parse_commit_batch(
     flat_exit = ex.T.reshape(-1)
 
     # P2: chain row entries per chunk ((B,)-wide, rows_per steps).
-    starts = starts.astype(jnp.int32)
     r0 = starts // _ROW
     chunk_base = jnp.arange(bch, dtype=jnp.int32) * npad
 
@@ -585,8 +505,7 @@ def parse_commit_batch(
     # Per-lane sink slots: within a step every live lane walks a distinct
     # row, and exited lanes each park on their OWN sink slot — the
     # scatter indices are therefore truly unique, which lets XLA skip the
-    # general conflict-handling scatter path (measured as the parse's
-    # dominant per-step cost on the chip).
+    # general conflict-handling scatter path.
     lane_sink = nflat + jnp.arange(pos0.shape[0], dtype=jnp.int32)
 
     def p3(t, state):
@@ -605,8 +524,49 @@ def parse_commit_batch(
         0, _ROW, p3,
         (jnp.zeros((nflat + pos0.shape[0],), jnp.int8), pos0),
     )
+    return mark[:nflat].reshape(bch, npad) == 1
 
-    committed = mark[:nflat].reshape(bch, npad)[:, :n] == 1
+
+def _parse_rows(step: jax.Array, starts: jax.Array) -> jax.Array:
+    """The committed mask by the platform the graph is lowered for: the
+    CUDA kernel on a GPU (ops/parse_kernel.py), the XLA sweeps on the
+    CPU. Lowering for any other platform is an error."""
+    from zzflate_tpu.ops import parse_kernel
+
+    return jax.lax.platform_dependent(
+        step, starts,
+        cpu=_parse_rows_xla,
+        cuda=lambda st, sv: parse_kernel.parse_rows(st, sv, _ROW),
+    )
+
+
+@functools.partial(jax.jit, static_argnames=("lazy",))
+def parse_commit_batch(
+    mlen: jax.Array,
+    mdist: jax.Array,
+    starts: jax.Array,
+    valid_ends: jax.Array,
+    lazy: bool,
+    max_lazy: int | jax.Array = 258,
+    nice: int | jax.Array = 258,
+):
+    """Greedy/lazy parse of a BATCH of chunks via serial row sweeps.
+
+    mlen/mdist: (B, N); starts/valid_ends: (B,). Returns (committed, take)
+    as (B, N) bools — identical semantics to a sequential zlib-style
+    deflate_fast/deflate_slow walk (SURVEY.md C6/C7). The walk itself is
+    _parse_rows over the (B, N) steps padded to whole rows.
+    """
+    bch, n = mlen.shape
+    take = _lazy_take(mlen, lazy, max_lazy, nice)
+    step = jnp.where(take, jnp.maximum(mlen, 1), 1).astype(jnp.int32)
+
+    npad = -(-n // _ROW) * _ROW
+    if npad != n:
+        step = jnp.pad(step, ((0, 0), (0, npad - n)), constant_values=1)
+    starts = starts.astype(jnp.int32)
+    with jax.named_scope("parse"):
+        committed = _parse_rows(step, starts)[:, :n]
     posn = jnp.arange(n, dtype=jnp.int32)[None, :]
     committed = (
         committed & (posn >= starts[:, None]) & (posn < valid_ends[:, None])

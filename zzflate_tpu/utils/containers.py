@@ -72,7 +72,7 @@ def gzip_header_indexed(
 
     v3 layout: ver(B) flags(B) chunk_bytes(I) nchunks(I) T(H), then per
     chunk: seg_bytes(I) nb(H) na(H) + nb block pairs + na anchor pairs.
-    Anchors mark every T-th committed token inside a block so the TPU
+    Anchors mark every T-th committed token inside a block so the device
     decoder can walk all token intervals in parallel with a static
     bound; they are dropped (na=0) if the index would not fit FEXTRA."""
     def build(with_anchors: bool) -> bytearray:

@@ -48,6 +48,29 @@ def _xmlish(budget: int) -> bytes:
     return out.getvalue().encode()[:budget]
 
 
+def seeded_mix(target: int, seed: int = 0) -> bytes:
+    """Mixed corpus of exactly `target` bytes made from `seed` alone.
+
+    Unlike silesia_like it reads no host files, so its bytes (and the
+    codec's output on it) are the same on every machine: a third
+    XML-ish records, a third seeded random bytes (stored-fallback food),
+    and a third a repeated block of seeded pseudo-words.
+    """
+    rng = np.random.default_rng(seed)
+    third = target // 3
+    xml = _xmlish(third)
+    rand = rng.integers(0, 256, size=third, dtype=np.uint8).tobytes()
+    vocab = [
+        bytes(rng.integers(97, 123, size=int(k), dtype=np.uint8))
+        for k in rng.integers(2, 10, size=400)
+    ]
+    words = rng.integers(0, len(vocab), size=4096)
+    block = b" ".join(vocab[i] for i in words) + b".\n"
+    rest = target - len(xml) - len(rand)
+    text = (block * (rest // len(block) + 1))[:rest]
+    return xml + rand + text
+
+
 def silesia_like(target: int = 100 * _MIB) -> bytes:
     """Deterministic mixed corpus of ~`target` bytes.
 

@@ -3,10 +3,9 @@
 The reference-class codec has wall-clock bench timing only; here:
 - `trace(logdir)` wraps jax.profiler.trace for TensorBoard/Perfetto
   kernel timelines;
-- `StageTimer` collects per-stage wall times with an optional forced
-  device sync (on this platform block_until_ready is unreliable, so
-  stages that end in device values should pass a `sync` callable that
-  fetches something small);
+- `StageTimer` collects per-stage wall times; a stage that ends in
+  device values can pass a `sync` callable (e.g. one that calls
+  `jax.block_until_ready`) so its time includes the device work;
 - `run_report(...)` emits the structured per-run JSON of section 5.5
   (bytes in/out, ratio, MB/s, per-stage ms, device info).
 """

@@ -4,7 +4,7 @@ A user of the reference-class codec (or of stdlib zlib, zlib.h:1229/250)
 can `import zzflate_tpu.zlib_compat as zlib` and keep their code: the
 one-shot and streaming entry points, flush constants, checksum helpers
 and `compressobj`/`decompressobj` objects mirror the stdlib names and
-semantics, with the TPU pipeline underneath. wbits follows the
+semantics, with the device pipeline underneath. wbits follows the
 zlib.h:551-580 contract: 9..15 zlib container, negative = raw deflate,
 +16 = gzip, +32 on decompress = auto-detect zlib/gzip.
 """
